@@ -1,6 +1,6 @@
-"""climate_sim_tpu — a TPU-native 2D climate stencil framework.
+"""climate_sim_tpu — a 2D climate stencil framework in JAX.
 
-Brand-new JAX/XLA/Pallas implementation with the capabilities of the
+Brand-new JAX/XLA implementation, run on NVIDIA GPUs, with the capabilities of the
 C++/MPI reference (antoniorizzoeng/climate-sim-mpi-cpp): explicit FTCS
 diffusion + first-order upwind advection of a passive scalar on a 2D
 Cartesian grid, per-side Dirichlet/Neumann/periodic BCs, Gaussian/file ICs,

@@ -1,7 +1,7 @@
 """Self-contained classic-NetCDF codec (CDF-1, CDF-2 / 64-bit-offset, and
 CDF-5 / 64-bit-data).
 
-This is the TPU build's replacement for the reference's PnetCDF layer
+This is this build's replacement for the reference's PnetCDF layer
 (reference: src/io.cpp:378-448 uses ``ncmpi_create(NC_CLOBBER|NC_64BIT_DATA)``,
 i.e. CDF-5).  The runtime image has no netCDF4/PnetCDF, so we implement the
 on-disk format directly:

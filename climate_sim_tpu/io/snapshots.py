@@ -13,7 +13,7 @@ The reference's Python visualization package reads these files unchanged.
 
 When the native C++ I/O runtime is available (``climate_sim_tpu.io.native``),
 record appends are handed to a background writer thread so snapshot encoding
-and disk I/O overlap device compute — the TPU-side analogue of PnetCDF's
+and disk I/O overlap device compute — the analogue of PnetCDF's
 nonblocking collective writes.
 """
 
@@ -96,7 +96,7 @@ class ShardedSnapshotWriter:
     """Per-process parallel snapshot writes: every process writes ONLY the
     rows of its locally-addressable shards, at deterministic record offsets.
 
-    This is the TPU-native analogue of the reference's collective per-rank
+    This is the analogue of the reference's collective per-rank
     hyperslab writes (``ncmpi_put_vara_double_all`` at
     ``start={step, y_off, x_off}``, io.cpp:402-424): all processes open the
     same file on a shared filesystem; the creating process (the controller)

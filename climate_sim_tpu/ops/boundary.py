@@ -9,7 +9,7 @@ in-place each step: MPI halo exchange first (halo.cpp:6-49), then
 * Periodic: **no branch exists** — the ghost keeps its initial fill(0.0)
   forever, so the reference's "periodic" is numerically Dirichlet(0).
 
-The TPU-native design is functional: the prognostic state is the *interior*
+The design here is functional: the prognostic state is the *interior*
 (ny, nx) array; each step builds a ghost-padded (ny+2, nx+2) view with the BC
 values baked in.  Periodic is implemented as a true wrap (decision log #1);
 ``compat=True`` reproduces the reference's stale-zero ghost behavior exactly.

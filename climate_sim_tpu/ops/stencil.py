@@ -16,9 +16,9 @@ All functions take a ghost-padded (ny+2, nx+2) array and return the updated
 *interior* (ny, nx).  Velocity signs are Python-level (config constants), so
 the upwind branch is resolved at trace time and XLA sees straight-line code.
 
-These jnp implementations are the "oracle" path; the performance path is the
-Pallas kernel in :mod:`climate_sim_tpu.ops.pallas_stencil`, which must agree
-with these to tight tolerances (tested).
+These ``jax.numpy`` functions are the device path: XLA compiles them for the
+card.  ``tests/oracle.py`` is the independent NumPy float64 oracle they are
+checked against.
 """
 
 from __future__ import annotations
@@ -106,10 +106,9 @@ def fused_step(
 
 def fused_step_storage(up, D, vx, vy, dt, dx, dy):
     """:func:`fused_step` with bf16-STORAGE semantics: bf16 inputs compute
-    in f32 and round once on output (matching the Pallas chained kernel's
-    per-pass cast — raw bf16 stencil arithmetic measured ~4-10x the
-    storage-rounding error).  Other dtypes pass through unchanged; every
-    jnp fallback path the driver can route a bf16 run to must call THIS,
+    in f32 and round once on output (raw bf16 stencil arithmetic measured
+    ~4-10x the storage-rounding error).  Other dtypes pass through
+    unchanged; every path the driver can route a bf16 run to calls THIS,
     not fused_step, or its numerics silently degrade."""
     if up.dtype == jnp.bfloat16:
         return fused_step(

@@ -1,10 +1,11 @@
-"""Step-function assembly: picks the interior kernel implementation and wires
-it to ghost construction, for both the single-device and sharded paths.
+"""Step-function assembly: wires ghost construction to the fused stencil, for
+both the single-device and sharded paths.
 
 The reference's time-loop body (main.cpp:101-109) is: halo exchange ->
 apply_boundary -> copy -> diffusion_step -> advection_step (accumulating) ->
 swap.  Functionally that is exactly ``u' = fused_step(pad_with_ghosts(u))``,
-which is what both paths compute here.
+which is what both paths compute here, as plain ``jax.numpy`` that XLA
+compiles for the device.
 """
 
 from __future__ import annotations
@@ -18,64 +19,26 @@ from jax import lax
 
 from ..config import SimConfig
 from .boundary import pad_with_ghosts
-from .stencil import fused_step
-
-
-PALLAS_KERNELS = ("pallas", "pallas_multistep")
-
-
-def select_kernel(cfg: SimConfig) -> str:
-    """Resolve kernel='auto' to a concrete implementation."""
-    if cfg.kernel != "auto":
-        return cfg.kernel
-    try:
-        on_tpu = jax.devices()[0].platform == "tpu"
-    except Exception:
-        on_tpu = False
-    return "pallas" if on_tpu else "jnp"
+from .stencil import fused_step, fused_step_storage
 
 
 def make_interior_step(cfg: SimConfig, dt: float) -> Callable[[jnp.ndarray], jnp.ndarray]:
-    """Return fn: ghost-padded tile (my+2, mx+2) -> updated interior (my, mx)."""
-    kernel = select_kernel(cfg)
-    if kernel in PALLAS_KERNELS:
-        try:
-            from .pallas_stencil import make_pallas_interior_step
+    """Return fn: ghost-padded tile (my+2, mx+2) -> updated interior (my, mx).
 
-            return make_pallas_interior_step(cfg, dt)
-        except ImportError:
-            kernel = "jnp"
+    bf16 is a storage format: the step computes in f32 and rounds once on
+    output (see :func:`fused_step_storage`)."""
 
     def step(up: jnp.ndarray) -> jnp.ndarray:
-        if up.dtype == jnp.bfloat16:
-            # bf16 is a STORAGE format here like in the multi-step kernel
-            # (one rounding per step, f32 arithmetic) — raw bf16 stencil
-            # arithmetic measured ~4x the storage-rounding error.
-            out = fused_step(
-                up.astype(jnp.float32), cfg.D, cfg.vx, cfg.vy, dt,
-                cfg.dx, cfg.dy,
-            )
-            return out.astype(jnp.bfloat16)
-        return fused_step(up, cfg.D, cfg.vx, cfg.vy, dt, cfg.dx, cfg.dy)
+        return fused_step_storage(up, cfg.D, cfg.vx, cfg.vy, dt, cfg.dx, cfg.dy)
 
     return step
 
 
 def build_single_device_advance(cfg: SimConfig, dt: float):
     """``advance(k)`` -> jitted fn advancing the global (ny, nx) field k steps
-    on one device (or under GSPMD auto-partitioning if the input is sharded).
-
-    With the Pallas kernel selected, chunks run as multi-step kernel passes
-    (k steps per HBM round trip — see ops/pallas_stencil.py); otherwise each
-    step is pad_with_ghosts + fused jnp stencil inside a fori_loop.
+    on one device (or under GSPMD auto-partitioning if the input is sharded):
+    each step is pad_with_ghosts + the fused stencil inside a fori_loop.
     """
-    if select_kernel(cfg) in PALLAS_KERNELS:
-        try:
-            from .pallas_stencil import build_multistep_advance
-
-            return build_multistep_advance(cfg, dt)
-        except ImportError:
-            pass
     interior = make_interior_step(cfg, dt)
     compat = cfg.strict_reference_compat
 

@@ -1,19 +1,18 @@
 """Structural dataflow analysis of sharded chunk programs.
 
-The weak-scaling latency model needs ONE number per kernel path: how many
-exchange latencies are SERIALIZED on a pass's critical path (the ``slope``
-in ``eff(L) = T_pass / (T_pass + slope * L)``).  Measuring it by latency
-injection on the host-serialized virtual mesh (scripts/latency_bound.py)
-overstates it — the callback runtime serializes the two *directions* of a
-round that real links run concurrently — so the r03 report carried an
-unresolved slope interval [2, 4].  The quantity is a property of the
-dataflow graph, not of link speed, so compute it exactly: walk the jaxpr
-and take the longest chain of data-dependent ``ppermute`` ops.
+A weak-scaling latency model needs ONE number per sharded path: how many
+exchange latencies are SERIALIZED on a step's critical path (the ``slope``
+in ``eff(L) = T_step / (T_step + slope * L)``).  Latency injection on a
+host-serialized virtual mesh overstates it — the callback runtime
+serializes the two *directions* of a round that real links run
+concurrently.  The quantity is a property of the dataflow graph, not of
+link speed, so compute it exactly: walk the jaxpr and take the longest
+chain of data-dependent ``ppermute`` ops.
 
 The reference's analogue is the dependency structure of its nonblocking
 exchange (reference: src/halo.cpp:28-46): columns first, then full rows
 that INCLUDE the just-received corner ghosts — the same 2-round chain the
-slab path's x-faces-then-y-slabs exchange has.
+sharded path's x-faces-then-y-rows exchange has.
 """
 
 from __future__ import annotations
@@ -38,8 +37,7 @@ def _chain(jx, in_depths: Sequence[int]) -> int:
     depths already carried by its invars.  Sub-jaxpr'd equations (shard_map,
     pjit, scan/while bodies) contribute their own internal chain on top of
     their inputs' — for loops that is the PER-ITERATION chain, which is
-    exactly the per-pass number the latency model wants when the caller
-    builds a one-pass program."""
+    exactly the per-step number the latency model wants."""
     from jax._src import core as jcore
 
     env = {}
@@ -67,8 +65,8 @@ def _chain(jx, in_depths: Sequence[int]) -> int:
             # seeding.  Floor at d either way: an empty/identity
             # sub-jaxpr (outvars aliasing invars, zero eqns) returns 0,
             # which must not RESET the accumulated chain passing through
-            # it; scan bodies still count once regardless of trip count
-            # (the per-iteration chain is what the one-pass caller wants).
+            # it; loop bodies still count once regardless of trip count
+            # (the per-iteration chain is what the caller wants).
             best = d
             for s in subs:
                 seed = in_ds if len(s.invars) == len(eqn.invars) \
@@ -84,8 +82,8 @@ def _chain(jx, in_depths: Sequence[int]) -> int:
 def ppermute_critical_depth(fn, *example_args) -> int:
     """Serialized exchange rounds on the critical path of ``fn``'s program.
 
-    ``fn`` is a (possibly jitted) function — typically ``advance(k)`` for a
-    ONE-pass chunk (k == steps_per_pass), so the result is rounds per pass.
+    ``fn`` is a (possibly jitted) function — typically ``advance(1)``, so
+    the result is rounds per step.
     Chains are counted through shard_map/pjit/scan boundaries; concurrent
     ppermutes (e.g. the left/right faces of one exchange round) count once.
     """

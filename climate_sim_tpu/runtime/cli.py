@@ -5,28 +5,21 @@ Usage parity with the reference binary (reference: src/main.cpp:30-40):
     python -m climate_sim_tpu [run] --config=cfg.yaml --nx=1024 --dt 0.05 ...
 
 accepts ``--config=<yaml>`` / ``--config <yaml>`` plus any ``--key=value`` or
-``--key value`` overrides understood by the config system.
+``--key value`` overrides understood by the config system.  The JAX platform
+follows ``JAX_PLATFORMS`` (e.g. ``JAX_PLATFORMS=cpu``).
 """
 
 from __future__ import annotations
 
-import os
 import sys
 from typing import List, Optional, Sequence
 
 from ..config import extract_config_path, merged_config
+from .compile_cache import enable_compile_cache
 from .driver import run_simulation
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
-    # Benchmark harness hook: force a JAX platform before backend init
-    # (JAX_PLATFORMS alone is overridden by images that force a TPU backend).
-    platform = os.environ.get("CLIMATE_SIM_PLATFORM")
-    if platform:
-        import jax
-
-        jax.config.update("jax_platforms", platform)
-
     args: List[str] = list(sys.argv[1:] if argv is None else argv)
     if args and args[0] == "run":
         args = args[1:]
@@ -49,6 +42,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 2
 
+    enable_compile_cache()
     try:
         run_simulation(cfg)
     except Exception as e:

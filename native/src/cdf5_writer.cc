@@ -1,9 +1,9 @@
 // Native CDF-5 snapshot writer for climate_sim_tpu.
 //
-// TPU-native replacement for the data plane of the reference's PnetCDF layer
+// Replacement for the data plane of the reference's PnetCDF layer
 // (reference: src/io.cpp:378-448 — ncmpi_create(NC_CLOBBER|NC_64BIT_DATA),
 // dims time/y/x, one NC_DOUBLE variable u(time,y,x), global text attrs,
-// collective record writes).  On TPU there is one controller process, so the
+// collective record writes).  On one host there is one controller process, so the
 // parallel-I/O concern becomes a *latency-hiding* concern: `ncw_append`
 // enqueues a frame copy and returns immediately; a background writer thread
 // does the big-endian conversion and file I/O, overlapping device compute
@@ -37,6 +37,7 @@
 #include <map>
 #include <memory>
 #include <mutex>
+#include <stdexcept>
 #include <string>
 #include <thread>
 #include <vector>

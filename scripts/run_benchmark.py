@@ -23,7 +23,10 @@ exactly this purpose, like main.cpp:127-133):
   "ranks" share one host's cores: do NOT read its speedup column as
   scaling (it is the analogue of ``mpirun --oversubscribe`` far past the
   core count).
-* ``tpu`` — the attached real chips (rank counts capped at device count).
+* ``gpu`` — the attached GPUs (rank counts capped at the device count).
+  Each measured run is its own child process and the harness itself never
+  initializes JAX (it counts the GPUs through a short child probe), so every
+  child has the cards to itself.
 
 Outputs (same filenames/columns as the reference, plus a leading
 ``platform`` column):
@@ -76,12 +79,10 @@ def run_multiproc(p: int, nx: int, ny: int, steps: int,
     runs, each on 1/p of the grid, launched simultaneously on distinct
     cores with no communication at all.  Its timing isolates the
     shared-DRAM/core contention term of multiproc scaling from the
-    collective cost (the model decomposition in docs/performance.md
-    "Weak scaling validated against measurement"); the exchange-latency
-    term is measured separately by scripts/exchange_latency.py."""
+    collective cost."""
     port = _free_port()
     env = dict(os.environ)
-    env["CLIMATE_SIM_PLATFORM"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"
     # One core per rank, like `mpirun -np p` with one PE per rank: without
     # this, rank 1's XLA intra-op threadpool already uses every core and the
     # sweep measures thread-vs-process contention instead of scaling.
@@ -175,13 +176,13 @@ def run_one(p: int, nx: int, ny: int, steps: int, platform: str,
     env = dict(os.environ)
     args = _sim_args(nx, ny, steps, extra)
     if platform == "cpu":
-        env["CLIMATE_SIM_PLATFORM"] = "cpu"
+        env["JAX_PLATFORMS"] = "cpu"
         env["XLA_FLAGS"] = (
             env.get("XLA_FLAGS", "") + f" --xla_force_host_platform_device_count={p}"
         )
     else:
-        # Real chips: cap the device count per measurement, else every row
-        # would silently use all attached chips.
+        # Real devices: cap the device count per measurement, else every
+        # row would silently use all attached GPUs.
         args.append(f"--max_devices={p}")
     out = subprocess.run(
         args, cwd=REPO_ROOT, env=env, capture_output=True, text=True, timeout=1800
@@ -195,6 +196,20 @@ def run_one(p: int, nx: int, ny: int, steps: int, platform: str,
         raise RuntimeError(f"no timing line in output:\n{out.stdout[-2000:]}")
     total = float(m.group(1))
     return total, total / steps
+
+
+def count_gpus() -> int:
+    """Number of visible GPUs, counted in a short child process: a JAX
+    backend initialized here would reserve most of every card's memory for
+    this parent, and the measured children would then fail for want of it."""
+    probe = subprocess.run(
+        [sys.executable, "-c",
+         "import jax; print(len(jax.devices('gpu')))"],
+        cwd=REPO_ROOT, capture_output=True, text=True, timeout=300,
+    )
+    if probe.returncode != 0:
+        raise RuntimeError(f"GPU probe failed:\n{probe.stderr[-2000:]}")
+    return int(probe.stdout.strip().splitlines()[-1])
 
 
 def annotate_strong(rows: list[tuple]) -> tuple[list[tuple], int]:
@@ -218,7 +233,7 @@ def annotate_strong(rows: list[tuple]) -> tuple[list[tuple], int]:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--platform",
-                    choices=["multiproc", "multiproc_nocomm", "cpu", "tpu"],
+                    choices=["multiproc", "multiproc_nocomm", "cpu", "gpu"],
                     default="multiproc",
                     help="multiproc = p coordinated OS processes, 1 device "
                          "each (real parallelism; default); multiproc_nocomm "
@@ -226,7 +241,7 @@ def main() -> int:
                          "contention control for the latency-model "
                          "validation); cpu = one process "
                          "with a virtual p-device mesh (path validation only, "
-                         "NOT scaling); tpu = real attached chips")
+                         "NOT scaling); gpu = the attached GPUs")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--strong-nx", type=int, default=1024)
     ap.add_argument("--strong-ny", type=int, default=1024)
@@ -240,10 +255,8 @@ def main() -> int:
     # Unrecognized --key=value tokens pass through to the simulation CLI.
     args.extra = extra
 
-    if args.platform == "tpu":
-        import jax  # noqa: deferred so cpu mode never inits a backend here
-
-        n = len(jax.devices())
+    if args.platform == "gpu":
+        n = count_gpus()
         args.strong_ranks = sorted({min(p, n) for p in args.strong_ranks})
         args.weak_ranks = sorted({min(p, n) for p in args.weak_ranks})
 
@@ -257,7 +270,7 @@ def main() -> int:
                          "oversubscription, not scaling\n")
             print(warn_note.strip(), flush=True)
         # CPU-backend cross-process collectives ride TCP loopback (~ms per
-        # exchange on a typical node) where MPI shared-memory and TPU ICI
+        # exchange on a typical node) where MPI shared memory and NVLink
         # are ~us-scale: rows whose per-rank per-step compute is comparable
         # to that latency measure coordination latency, not scaling.
         warn_note += (

@@ -1,14 +1,16 @@
 """The shared benchmark measurement protocol (climate_sim_tpu/benchproto.py)
-used by bench.py and the perf scripts — config literal, AOT helper, and the
-best-of-N timing dance."""
+used by bench.py and chip_smoke.py — config literal, the best-of-N timing
+loop and the device peak table."""
 
 import jax
 import jax.numpy as jnp
+import pytest
 
 from climate_sim_tpu.benchproto import (
-    aot_compile,
+    HBM_BANDWIDTH,
     bench_config,
-    sync_fetch,
+    bytes_per_point_step,
+    hbm_bandwidth,
     time_best_of,
 )
 from climate_sim_tpu.config import BCType
@@ -28,17 +30,25 @@ def test_bench_config_is_canonical_workload():
 
 def test_aot_compile_and_time_best_of():
     u0 = jnp.ones((8, 8), jnp.float32)
-    fn = aot_compile(jax.jit(lambda u: u * 2.0), u0)
+    fn = jax.jit(lambda u: u * 2.0).lower(u0).compile()
     best, out = time_best_of(fn, u0, reps=3, trials=2)
     assert best > 0.0
     # warm-up (1) + 2 trials x 3 reps = 7 doublings
     assert float(out[0, 0]) == 2.0 ** 7
-    sync_fetch(out)  # idempotent on a ready array
 
 
-def test_aot_compile_falls_back_without_lower():
-    def plain(u):
-        return u + 1.0  # no .lower attribute -> fallback path
+def test_peak_table_and_unknown_device():
+    """The H100's peak comes from the table; an unknown kind is an error,
+    never a default."""
+    assert hbm_bandwidth("NVIDIA H100 80GB HBM3") == 3.35e12
+    assert set(HBM_BANDWIDTH) == {"NVIDIA H100 80GB HBM3"}
+    with pytest.raises(ValueError, match="no peak bandwidth"):
+        hbm_bandwidth("Some Accelerator X")
+    with pytest.raises(ValueError, match="no peak bandwidth"):
+        hbm_bandwidth(jax.devices()[0].device_kind)
 
-    fn = aot_compile(plain, jnp.zeros((2, 2)))
-    assert fn is plain
+
+@pytest.mark.parametrize("itemsize,want", [(2, 4), (4, 8), (8, 16)])
+def test_bytes_per_point_step(itemsize, want):
+    """One read and one write of the field per step at the memory bound."""
+    assert bytes_per_point_step(itemsize) == want

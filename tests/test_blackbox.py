@@ -20,7 +20,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def sim(args, timeout=300):
     env = dict(os.environ)
-    env["CLIMATE_SIM_PLATFORM"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"
     return subprocess.run(
         [sys.executable, "-m", "climate_sim_tpu"] + args,
         cwd=REPO, env=env, capture_output=True, text=True, timeout=timeout,

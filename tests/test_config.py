@@ -1,6 +1,8 @@
 """Config-system tests (reference analogue: tests/simulation/unit/test_io.cpp
 YAML/CLI sections)."""
 
+import os
+
 import pytest
 
 from climate_sim_tpu.config import (
@@ -13,6 +15,8 @@ from climate_sim_tpu.config import (
     merged_config,
     parse_cli_overrides,
 )
+
+REFERENCE_DEV = os.path.join(os.path.dirname(__file__), "fixtures", "reference_dev.yaml")
 
 
 def test_defaults():
@@ -145,7 +149,7 @@ def test_extract_config_path():
 
 def test_reference_dev_yaml_parses():
     """The reference's shipped config must load verbatim."""
-    cfg = load_yaml_file("/root/reference/configs/dev.yaml")
+    cfg = load_yaml_file(REFERENCE_DEV)
     assert (cfg.nx, cfg.ny) == (512, 512)
     assert cfg.D == 0.05 and cfg.vx == 0.5
     assert cfg.bc.bottom == BCType.PERIODIC and cfg.bc.right == BCType.NEUMANN
@@ -203,8 +207,6 @@ def test_config_to_dict_roundtrips_through_loader():
     cfg.ic.A = 2.5
     cfg.mesh.x = 4  # y stays None (auto)
     cfg.precision = "bf16"
-    cfg.kernel = "pallas_multistep"
-    cfg.halo_overlap = True
     cfg.validate()
 
     rt = load_yaml_dict(config_to_dict(cfg))
@@ -214,49 +216,25 @@ def test_config_to_dict_roundtrips_through_loader():
     assert load_yaml_dict(config_to_dict(SimConfig())) == SimConfig()
 
 
-def test_steps_per_pass_parse_and_validate(tmp_path):
-    from climate_sim_tpu.config import merged_config
-
-    cfg = merged_config(None, ["--steps_per_pass=16"])
-    assert cfg.steps_per_pass == 16
-    y = tmp_path / "c.yaml"
-    y.write_text("steps_per_pass: 4\n")
-    assert merged_config(str(y), []).steps_per_pass == 4
-    # CLI wins over YAML; 0 = auto
-    assert merged_config(str(y), ["--steps_per_pass=0"]).steps_per_pass == 0
-    with pytest.raises(ValueError, match="steps_per_pass"):
-        merged_config(None, ["--steps_per_pass=33"])
-    with pytest.raises(ValueError, match="steps_per_pass"):
-        merged_config(None, ["--steps_per_pass=-1"])
-
-
-def test_halo_overlap_tristate(tmp_path):
-    """halo_overlap accepts true|false|auto everywhere (field default,
-    YAML, CLI) and validate() rejects anything else."""
-    assert SimConfig().halo_overlap == "auto"
-    assert merged_config(None, ["--halo_overlap=true"]).halo_overlap is True
-    assert merged_config(None, ["--halo_overlap=false"]).halo_overlap is False
-    assert merged_config(None, ["--halo_overlap=auto"]).halo_overlap == "auto"
-    y = tmp_path / "c.yaml"
-    y.write_text("halo_overlap: auto\n")
-    assert merged_config(str(y), []).halo_overlap == "auto"
-    y.write_text("halo_overlap: true\n")
-    assert merged_config(str(y), []).halo_overlap is True
-    y.write_text("halo_overlap: false\n")
-    assert merged_config(str(y), ["--halo_overlap=auto"]).halo_overlap == "auto"
-    cfg = SimConfig()
-    cfg.halo_overlap = "bogus"
-    with pytest.raises(ValueError, match="halo_overlap"):
-        cfg.validate()
-
-
-def test_halo_overlap_typo_raises():
-    """A tristate typo must raise, not silently force-disable the policy
-    (validate() cannot catch it — coercion runs first; review finding)."""
-    with pytest.raises(ValueError, match="true|false|auto"):
-        merged_config(None, ["--halo_overlap=aato"])
-    import yaml as _yaml  # noqa: F401
-    from climate_sim_tpu.config import load_yaml_dict
-
-    with pytest.raises(ValueError, match="true|false|auto"):
-        load_yaml_dict({"halo_overlap": "enable"})
+@pytest.mark.parametrize("form", ["yaml", "cli", "cli_space", "constructor"])
+@pytest.mark.parametrize("option,value", [
+    ("kernel", "pallas"), ("kernel", "jnp"),
+    ("halo_overlap", "true"), ("steps_per_pass", "16"),
+])
+def test_removed_option_rejected(tmp_path, form, option, value):
+    """The options of the removed Pallas kernels fail loudly, naming the
+    removal, wherever they are set — never silently ignored."""
+    if form == "constructor":
+        with pytest.raises(TypeError, match=option):
+            SimConfig(**{option: value})
+        return
+    if form == "yaml":
+        y = tmp_path / "c.yaml"
+        y.write_text(f"grid: {{ nx: 32 }}\n{option}: {value}\n")
+        args, path = [], str(y)
+    else:
+        args = ([f"--{option}={value}"] if form == "cli"
+                else [f"--{option}", value])
+        path = None
+    with pytest.raises(ValueError, match=f"option '{option}' was removed"):
+        merged_config(path, args)

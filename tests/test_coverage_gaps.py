@@ -1,5 +1,5 @@
 """In-process tests for paths previously reachable only via subprocesses
-(runtime CLI, kernel selection, dataset sniffing, mesh-shape requests) —
+(runtime CLI, dataset sniffing, mesh-shape requests) —
 keeps the CI line-coverage gate (>=90%, reference gcovr.cfg) honest,
 since subprocess executions are invisible to in-process coverage tracing.
 """
@@ -65,36 +65,14 @@ def test_cli_runtime_error_exits_one(capsys, tmp_path):
     assert "error:" in capsys.readouterr().err
 
 
-def test_cli_platform_env(monkeypatch, tmp_path):
-    # Tests already run on CPU; requesting it again through the env hook is
-    # a no-op that still exercises the branch.
-    monkeypatch.setenv("CLIMATE_SIM_PLATFORM", "cpu")
+def test_cli_platform_env(monkeypatch, tmp_path, capsys):
+    # The platform follows JAX_PLATFORMS (no hook of the CLI's own); the
+    # banner names the device that ran.
+    monkeypatch.setenv("JAX_PLATFORMS", "cpu")
     rc = cli_main(["--nx=16", "--ny=16", "--steps=1", "--out_every=1",
                    f"--output.dir={tmp_path}/o"])
     assert rc == 0
-
-
-# ------------------------------------------------------ kernel selection
-
-
-def test_select_kernel_auto_is_jnp_on_cpu():
-    from climate_sim_tpu.ops.step import select_kernel
-
-    assert select_kernel(SimConfig(kernel="auto")) == "jnp"
-    assert select_kernel(SimConfig(kernel="jnp")) == "jnp"
-    assert select_kernel(SimConfig(kernel="pallas")) == "pallas"
-
-
-def test_pallas_branches_build_on_cpu():
-    """Selecting the Pallas kernel builds (no execution) on any backend."""
-    from climate_sim_tpu.ops.step import (
-        build_single_device_advance,
-        make_interior_step,
-    )
-
-    cfg = SimConfig(nx=256, ny=256, kernel="pallas_multistep", dt=0.1)
-    assert callable(build_single_device_advance(cfg, cfg.dt))
-    assert callable(make_interior_step(cfg, cfg.dt))
+    assert "device: platform=cpu kind=cpu" in capsys.readouterr().out
 
 
 # ------------------------------------------------------------- datasets
@@ -215,38 +193,36 @@ def test_device_ic_file_mode_sharded(tmp_path):
 # --------------------------------------------------------------- config
 
 
-def test_yaml_tpu_extension_keys():
+def test_yaml_extension_keys():
     from climate_sim_tpu.config import load_yaml_dict
 
     cfg = load_yaml_dict({
         "precision": "bf16",
-        "kernel": "jnp",
         "mesh": {"x": 2, "y": 4, "enable": False},
         "strict_reference_compat": True,
         "diagnostics_every": 3,
         "debug_nans": True,
         "profile_dir": "/tmp/tr",
         "max_devices": 2,
-        "halo_overlap": True,
         "distributed": "auto",
         "output": {"path": "/tmp/x.nc", "write_final": True,
                    "enable": True},
         "ic": {"mode": "file", "file": "/tmp/ic.nc", "var": "u"},
     })
-    assert cfg.precision == "bf16" and cfg.kernel == "jnp"
+    assert cfg.precision == "bf16"
     assert (cfg.mesh.x, cfg.mesh.y, cfg.mesh.enable) == (2, 4, False)
     assert cfg.strict_reference_compat and cfg.diagnostics_every == 3
     assert cfg.debug_nans and cfg.profile_dir == "/tmp/tr"
-    assert cfg.max_devices == 2 and cfg.halo_overlap
+    assert cfg.max_devices == 2
     assert cfg.distributed == "auto"
     assert cfg.output_path == "/tmp/x.nc" and cfg.write_final
     assert cfg.ic.path == "/tmp/ic.nc" and cfg.ic.var == "u"
 
 
-def test_validate_tpu_extension_errors():
+def test_validate_extension_errors():
     import pytest as _pytest
 
-    bad = [("precision", "f16"), ("kernel", "cuda"), ("max_devices", -1)]
+    bad = [("precision", "f16"), ("max_devices", -1), ("nx", 0)]
     for attr, val in bad:
         cfg = SimConfig()
         setattr(cfg, attr, val)
@@ -454,29 +430,3 @@ def test_read_region_rejects_negative_extents(tmp_path):
                 h.read_region(0, -1, 0, 4)
             with pytest.raises(IndexError, match="outside field"):
                 h.read_region(0, 4, 1, -2)
-
-
-def test_explicit_pallas_kernel_on_cpu_runs_interpret(tmp_path):
-    """kernel=pallas_multistep on a non-TPU backend auto-selects interpret
-    mode (correct, slow) instead of crashing at trace time with a raw
-    pallas ValueError (found by the driver-level fuzz)."""
-    from climate_sim_tpu.config import merged_config
-    from climate_sim_tpu.runtime.driver import run_simulation
-
-    cfg = merged_config(None, [
-        "--nx=64", "--ny=48", "--D=0.2", "--vx=1.0", "--vy=0.5",
-        "--dx=0.5", "--dy=2.0", "--dt=0.2", "--steps=2", "--out_every=2",
-        "--kernel=pallas_multistep", "--bc.left=periodic",
-        "--bc.right=neumann", f"--output.dir={tmp_path}/o",
-    ])
-    cfg.mesh.enable = False
-    res = run_simulation(cfg)
-
-    import jax.numpy as jnp
-    from climate_sim_tpu.ops.init import gaussian_hotspot
-    from climate_sim_tpu.ops.step import reference_step
-
-    u = gaussian_hotspot(cfg, jnp.float32)
-    for _ in range(2):
-        u = reference_step(u, cfg, res.dt)
-    np.testing.assert_allclose(np.asarray(res.u), np.asarray(u), atol=1e-5)

@@ -83,7 +83,6 @@ def make_cfg(nx, ny, D, vx, vy, dt, bcs, dx=1.0, dy=1.0):
     cfg = SimConfig(nx=nx, ny=ny, dx=dx, dy=dy, D=D, vx=vx, vy=vy, dt=dt,
                     steps=1, out_every=1)
     cfg.precision = "f64"
-    cfg.kernel = "jnp"
     # The reference's periodic is a silent no-op (ghosts stay at their
     # initial fill(0.0)); strict_reference_compat reproduces that exactly.
     cfg.strict_reference_compat = "p" in bcs

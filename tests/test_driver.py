@@ -16,7 +16,7 @@ def run(tmp_path, extra):
     out = str(tmp_path / "outputs")
     cfg = merged_config(
         None,
-        ["--precision=f64", "--kernel=jnp", "--output.dir", out] + extra,
+        ["--precision=f64", "--output.dir", out] + extra,
     )
     res = run_simulation(cfg)
     return res, os.path.join(out, "snapshots.nc")
@@ -164,7 +164,7 @@ def test_cli_good_run_exit_zero(tmp_path):
     out = str(tmp_path / "outputs")
     rc = cli_main(
         ["run", "--nx=16", "--ny=16", "--steps=2", "--out_every=1",
-         "--precision=f64", "--kernel=jnp", "--output.dir", out]
+         "--precision=f64", "--output.dir", out]
     )
     assert rc == 0
     assert os.path.exists(os.path.join(out, "snapshots.nc"))
@@ -175,7 +175,7 @@ def test_cli_config_file(tmp_path):
     cfgfile = tmp_path / "cfg.yaml"
     cfgfile.write_text(
         "grid: { nx: 20, ny: 10 }\ntime: { dt: 0.1, steps: 3, out_every: 1 }\n"
-        f"output: {{ dir: \"{out}\" }}\nprecision: f64\nkernel: jnp\n"
+        f"output: {{ dir: \"{out}\" }}\nprecision: f64\n"
     )
     rc = cli_main([f"--config={cfgfile}", "--ny=12"])
     assert rc == 0
@@ -237,33 +237,23 @@ def test_combined_stability_advisory_warning(tmp_path, capsys):
 
 
 def test_bf16_long_horizon_advisory_warning(tmp_path, capsys):
-    """precision=bf16 past the documented per-pass rounding budget
-    (~1e-3 rel/pass, linear growth) must warn LOUD at startup — a
-    60k-step bf16 run produces decorrelated output and previously said
-    nothing (round-4 verdict).  Short bf16 runs stay silent."""
-    # Pallas paths round once per pass: 800 steps at k=8 = 100 events ->
-    # est 0.1 > the 0.05 budget; 80 steps = 10 events stays silent.
-    # (kernel pinned explicitly: on this CPU test backend kernel=auto
-    # resolves to jnp, whose per-step rounding rightly warns earlier.)
-    run(tmp_path, ["--nx=64", "--ny=64", "--precision=bf16",
-                   "--kernel=pallas_multistep",
-                   "--steps=800", "--out_every=800"])
-    err = capsys.readouterr().err
-    assert "precision=bf16" in err and "rounding events" in err
+    """precision=bf16 past the measured per-step rounding budget
+    (BF16_ERR_PER_STEP rel-L2 per step, linear growth) must warn LOUD at
+    startup — a 60k-step bf16 run produces decorrelated output.  bf16
+    storage rounds once per step, so the estimate counts steps; short bf16
+    runs stay silent."""
+    from climate_sim_tpu.runtime.driver import BF16_ERR_PER_STEP
 
+    quiet = int(0.05 / BF16_ERR_PER_STEP)  # the last step count under budget
     run(tmp_path, ["--nx=64", "--ny=64", "--precision=bf16",
-                   "--kernel=pallas_multistep",
-                   "--steps=80", "--out_every=80"])
+                   f"--steps={quiet}", f"--out_every={quiet}"])
     err = capsys.readouterr().err
     assert "rounding events" not in err
 
-    # per-step-rounding paths (kernel=jnp) round EVERY step: 320 steps =
-    # 320 events -> must warn even though 320/8 passes would stay under
-    # budget (review finding: the pass-based estimate was silent here)
     run(tmp_path, ["--nx=64", "--ny=64", "--precision=bf16",
-                   "--kernel=jnp", "--steps=320", "--out_every=320"])
+                   "--steps=320", "--out_every=320"])
     err = capsys.readouterr().err
-    assert "rounding events" in err
+    assert "precision=bf16" in err and "320 rounding events" in err
 
 
 def test_large_out_every_caps_dispatch_program_size(tmp_path, monkeypatch):
@@ -328,22 +318,15 @@ def test_restart_chain_bit_exact_vs_continuous(tmp_path):
 
 @pytest.mark.parametrize("mesh_on", [False, True])
 @pytest.mark.parametrize("bcs", [
-    # dev.yaml mix: one-sided-y -> ghost-row schedule (single-device
-    # fused; sharded slab)
+    # dev.yaml-style mix: one-sided periodic in y
     ("periodic", "periodic", "periodic", "dirichlet"),
-    # BOTH axes one-sided -> row + column schedules together, with the
-    # shared corner-patch evolution on the slab path
+    # BOTH axes one-sided periodic
     ("periodic", "dirichlet", "periodic", "neumann"),
 ])
 def test_scheduled_paths_through_driver(tmp_path, mesh_on, bcs):
-    """run_simulation end-to-end with one-sided-periodic BC mixes and the
-    Pallas kernel: single-device takes the fused schedule path(s), the
-    8-device virtual mesh the sharded slab schedules — both must match
-    the oracle (deterministic gate on top of the randomized driver fuzz).
-    512x128 so the mesh resolves to 128x64 tiles where the SLAB layout
-    (the scheduled one) actually engages — 256x128 would give 64-wide
-    tiles and silently gate the k=1 assembled fallback instead (review
-    finding)."""
+    """run_simulation end-to-end with one-sided-periodic BC mixes:
+    single-device and the 8-device virtual mesh (the sharded per-step
+    exchange) must both match the oracle."""
     import jax.numpy as jnp
 
     from climate_sim_tpu.ops import gaussian_hotspot
@@ -353,22 +336,11 @@ def test_scheduled_paths_through_driver(tmp_path, mesh_on, bcs):
     cfg = merged_config(None, [
         "--nx=512", "--ny=128", "--D=0.05", "--vx=0.5", "--vy=-0.25",
         "--dt=0.1", "--steps=19", "--out_every=19",
-        "--kernel=pallas_multistep",
         f"--bc.left={bcs[0]}", f"--bc.right={bcs[1]}",
         f"--bc.bottom={bcs[2]}", f"--bc.top={bcs[3]}",
         "--output.dir", out,
     ])
     cfg.mesh.enable = mesh_on
-    if mesh_on:
-        # the gate is only meaningful if the slab schedule can engage
-        from climate_sim_tpu.ops.pallas_stencil import (
-            sharded_tile_slab_multistep,
-        )
-
-        assert sharded_tile_slab_multistep(
-            None, None, None, None, cfg, cfg.dt, 2, True,
-            probe=True, probe_shape=(64, 128),
-        ) is not None
     res = run_simulation(cfg)
 
     u = gaussian_hotspot(cfg, jnp.float32)

@@ -184,112 +184,23 @@ def test_fully_indivisible_grid_takes_padded_gspmd_path(tmp_path, capsys):
     np.testing.assert_allclose(u, np.asarray(ref), atol=1e-6)
 
 
-def test_overlap_flag_builds_sharded_path(tmp_path):
-    """halo_overlap=true engages build_sharded_overlap_advance in prepare
-    (driver.py:187-196); on CPU the Pallas probe declines and the builder
-    falls back, which is exactly the fallback chain under test."""
-    cfg = SimConfig(nx=128, ny=128, D=0.05, dt=0.1, steps=2, out_every=2)
-    cfg.kernel = "pallas_multistep"
-    cfg.halo_overlap = True
-    u0, advance, mesh, dt, clamped = drv.prepare(cfg)
-    assert mesh is not None
-    assert callable(advance)
-
-
-def test_overlap_with_one_sided_periodic_fuses(capsys):
-    """halo_overlap + a one-sided-periodic BC mix now fuses at full k (the
-    band kernels apply the wrap consumer patches on the exchanged wrap
-    blocks), so the driver must NOT emit the old 1-step/pass cap warning
-    — the combination is a first-class configuration."""
-    from climate_sim_tpu.config import BCConfig, BCType
-
-    cfg = SimConfig(nx=128, ny=128, D=0.05, dt=0.1, steps=2, out_every=2)
-    cfg.kernel = "pallas_multistep"
-    cfg.halo_overlap = True
-    cfg.bc = BCConfig(left=BCType.DIRICHLET, right=BCType.DIRICHLET,
-                      bottom=BCType.PERIODIC, top=BCType.DIRICHLET)
-    drv.prepare(cfg)
-    assert "1 step/pass" not in capsys.readouterr().out
-
-
-def test_auto_policy_resolution(monkeypatch):
-    """halo_overlap=auto / steps_per_pass=0 resolve against the mesh's DCN
-    granule count (config.py field docs quote the measured policy): all-ICI
-    meshes keep overlap off and the on-chip pass depth; DCN-crossing meshes
-    enable overlap only for <=1024^2 shard tiles and deepen passes to 16.
-    Forced true/false pass through untouched."""
-    import dataclasses
-
-    import climate_sim_tpu.parallel.mesh as pmesh
-    from climate_sim_tpu.parallel.mesh import make_mesh
-
-    cfg = SimConfig(nx=128, ny=128, D=0.05, dt=0.1, steps=2, out_every=2)
-    mesh = make_mesh(4, 2)
-
-    # all-ICI (virtual CPU mesh): overlap off, pass depth left to default
-    r = drv.resolve_auto_policies(cfg, mesh)
-    assert r.halo_overlap is False and r.steps_per_pass == 0
-    # no mesh at all
-    r = drv.resolve_auto_policies(cfg, None)
-    assert r.halo_overlap is False and r.steps_per_pass == 0
-
-    # DCN-crossing mesh (synthetic granule count)
-    monkeypatch.setattr(pmesh, "dcn_granule_count", lambda devs: 2)
-    r = drv.resolve_auto_policies(cfg, mesh)  # 32x64 tiles: small
-    assert r.halo_overlap is True and r.steps_per_pass == 16
-
-    big = dataclasses.replace(cfg, nx=8192, ny=8192)  # 2048x4096 tiles
-    r = drv.resolve_auto_policies(big, mesh)
-    assert r.halo_overlap is False and r.steps_per_pass == 16
-
-    # one-sided-periodic mixes qualify for auto-overlap too: the band
-    # kernels fuse them at full k via the wrap consumer patches (a
-    # declined build still falls back to the slab path in prepare()).
-    from climate_sim_tpu.config import BCConfig, BCType
-
-    osided = dataclasses.replace(cfg)
-    osided.bc = BCConfig(BCType.DIRICHLET, BCType.DIRICHLET,
-                         BCType.PERIODIC, BCType.DIRICHLET)
-    r = drv.resolve_auto_policies(osided, mesh)
-    assert r.halo_overlap is True and r.steps_per_pass == 16
-
-    # forced values and explicit depth pass through
-    forced = dataclasses.replace(big, halo_overlap=True, steps_per_pass=8)
-    r = drv.resolve_auto_policies(forced, mesh)
-    assert r.halo_overlap is True and r.steps_per_pass == 8
-    off = dataclasses.replace(cfg, halo_overlap=False)
-    assert drv.resolve_auto_policies(off, mesh).halo_overlap is False
-
-
-def test_single_device_misaligned_grid_takes_carrier(tmp_path, capsys):
-    """SINGLE-CHIP misaligned grids engage the padded-carrier path on a
-    1x1 mesh (r05): shapes like 250x1252 decline every fused/assembled
-    single-device layout and previously fell to jnp-class rates
-    (52-127 Gpt/s measured vs the carrier's 170-176).  End-to-end
-    through snapshots and exact vs the oracle; aligned grids keep the
-    plain single-device fused path (no carrier, no mesh banner)."""
+def test_single_device_misaligned_grid_matches_oracle(tmp_path, capsys):
+    """A misaligned grid (the reference's remainder-decomposition shapes,
+    e.g. 250x1080) on ONE device runs the plain single-device path, end to
+    end through snapshots, and matches the oracle; no mesh is built."""
     from climate_sim_tpu.ops.init import gaussian_hotspot
     from climate_sim_tpu.ops.step import reference_step
 
     cfg = SimConfig(nx=250, ny=1080, D=0.02, dt=0.1, steps=2, out_every=1)
-    cfg.kernel = "pallas_multistep"
     cfg.output_dir = str(tmp_path / "o")
     res = drv.run_simulation(cfg, devices=jax.devices()[:1])
     out = capsys.readouterr().out
-    assert "CARRIER path" in out and "on this chip" in out
+    assert "mesh:" not in out and "device: platform=cpu" in out
     assert res.snapshots_written == 2
-    assert res.mesh_shape is None  # still a single-device run
+    assert res.mesh_shape is None
     u = np.asarray(jax.device_get(res.u))
     assert u.shape == (cfg.ny, cfg.nx)
     ref = gaussian_hotspot(cfg, res.u.dtype)
     for _ in range(cfg.steps):
         ref = reference_step(ref, cfg, res.dt)
-    np.testing.assert_allclose(u, np.asarray(ref), atol=5e-5)
-
-    # aligned single-device grid: carrier declines, fused path serves
-    cfg2 = SimConfig(nx=256, ny=128, D=0.02, dt=0.1, steps=2, out_every=2)
-    cfg2.kernel = "pallas_multistep"
-    u0, advance, mesh, dt, clamped = drv.prepare(
-        cfg2, devices=jax.devices()[:1]
-    )
-    assert mesh is None and not hasattr(advance, "embed")
+    np.testing.assert_allclose(u, np.asarray(ref), atol=1e-6)

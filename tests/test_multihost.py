@@ -2,7 +2,7 @@
 devices each -> one 8-device global mesh) run the driver end-to-end via
 ``jax.distributed``, exercising process_allgather snapshot gathers,
 controller-gated logging/IO, and the MAX-over-hosts timing reduction —
-the closest single-machine analogue of a 2-host TPU pod run.
+the closest single-machine analogue of a 2-host run.
 """
 
 import os
@@ -43,7 +43,7 @@ _mhu.process_allgather = _guarded_allgather
 
 argv = [
     "--nx=128", "--ny=64", "--steps=8", "--out_every=4",
-    "--kernel=jnp", "--output.dir=" + out,
+    "--output.dir=" + out,
     "--distributed=127.0.0.1:" + port + "," + str(nproc) + "," + str(proc_id),
 ]
 if ic_path:
@@ -106,7 +106,7 @@ def test_two_process_run_matches_single(tmp_path):
     ref_out = str(tmp_path / "single")
     cfg = merged_config(None, [
         "--nx=128", "--ny=64", "--steps=8", "--out_every=4",
-        "--kernel=jnp", f"--output.dir={ref_out}",
+        f"--output.dir={ref_out}",
     ])
     run_simulation(cfg)
 
@@ -154,7 +154,7 @@ def test_four_process_run_and_restart(tmp_path):
     ref_out = str(tmp_path / "single4")
     cfg = merged_config(None, [
         "--nx=128", "--ny=64", "--steps=8", "--out_every=4",
-        "--kernel=jnp", f"--output.dir={ref_out}",
+        f"--output.dir={ref_out}",
     ])
     run_simulation(cfg)
 
@@ -175,7 +175,7 @@ def test_four_process_run_and_restart(tmp_path):
     ref_out2 = str(tmp_path / "single4_restart")
     cfg2 = merged_config(None, [
         "--nx=128", "--ny=64", "--steps=8", "--out_every=4",
-        "--kernel=jnp", f"--output.dir={ref_out2}",
+        f"--output.dir={ref_out2}",
         "--ic.mode=file", f"--ic.path={snap}",
     ])
     run_simulation(cfg2)
@@ -208,7 +208,7 @@ snaps.ShardedSnapshotWriter.write_shards = _kill_after_record_2
 from climate_sim_tpu.config import merged_config
 from climate_sim_tpu.runtime.driver import run_simulation
 cfg = merged_config(None, [
-    "--nx=128", "--ny=64", "--steps=16", "--out_every=4", "--kernel=jnp",
+    "--nx=128", "--ny=64", "--steps=16", "--out_every=4",
     "--output.dir=" + out,
     "--distributed=127.0.0.1:" + port + ",4," + str(proc_id),
 ])
@@ -226,11 +226,8 @@ def test_four_process_kill_mid_run_then_restart(tmp_path):
     4-process restart from its LAST record must reproduce the
     uninterrupted 16-step run's remaining snapshots EXACTLY.  The restart
     keeps out_every=4, so its chunk boundaries align with the original
-    run's pass grouping (snapshots are f64 of an f32 field — the
-    round-trip is exact — and the jnp step is grouping-invariant, so
-    equality is bitwise; the Pallas chunk programs need the same cadence
-    alignment, the determinism nuance the sequential-restart test
-    documents)."""
+    run's (snapshots are f64 of an f32 field — the round-trip is exact —
+    and the step is grouping-invariant, so equality is bitwise)."""
     out = str(tmp_path / "mh4_kill")
     port = str(free_port())
     procs = [
@@ -261,7 +258,7 @@ def test_four_process_kill_mid_run_then_restart(tmp_path):
     ref_out = str(tmp_path / "uninterrupted")
     run_simulation(merged_config(None, [
         "--nx=128", "--ny=64", "--steps=16", "--out_every=4",
-        "--kernel=jnp", f"--output.dir={ref_out}",
+        f"--output.dir={ref_out}",
     ]))
 
     # Restart-from-last-record leg: 4 processes resume at step 8 and run
@@ -288,18 +285,14 @@ def test_four_process_kill_mid_run_then_restart(tmp_path):
 
 @pytest.mark.slow
 def test_two_process_scheduled_kernel_matches_oracle(tmp_path):
-    """The one-sided-periodic kernel paths under TRUE multi-controller
+    """The one-sided-periodic sharded path under TRUE multi-controller
     execution: two coordinated processes form one 8-device mesh and run a
-    BOTH-axes one-sided-periodic config with the Pallas slab kernel
-    (interpret mode on CPU devices) — wrap delivery via both cyclic
-    exchanges plus the kernel's composed wrap consumer patches, inside a
-    process-spanning shard_map.  512x128 resolves to 128x64 tiles where the slab layout
-    engages at k >= 2.  Output is compared to the in-process oracle
-    (atol; the kernel's weighted-stencil form re-associates, so the
-    byte-parity check of the jnp tests does not apply)."""
+    BOTH-axes one-sided-periodic config — wrap delivery via both cyclic
+    exchanges inside a process-spanning shard_map.  Output is compared to
+    the in-process oracle."""
     extra = (
         "--nx=512", "--ny=128", "--steps=19", "--out_every=19",
-        "--kernel=pallas_multistep", "--write_final=true",
+        "--write_final=true",
         "--bc.left=periodic", "--bc.right=dirichlet",
         "--bc.bottom=periodic", "--bc.top=neumann",
     )
@@ -351,7 +344,7 @@ if proc_id == 0:
 from climate_sim_tpu.config import merged_config
 from climate_sim_tpu.runtime.driver import run_simulation
 cfg = merged_config(None, [
-    "--nx=128", "--ny=64", "--steps=4", "--out_every=2", "--kernel=jnp",
+    "--nx=128", "--ny=64", "--steps=4", "--out_every=2",
     "--output.dir=" + out,
     "--distributed=127.0.0.1:" + port + ",2," + str(proc_id),
 ])
@@ -414,11 +407,12 @@ def test_controller_death_before_open_barrier_fails_peers(tmp_path):
 
 @pytest.mark.slow
 def test_two_process_carrier_path(tmp_path):
-    """Indivisible grid under 2 coordinated processes: the padded-carrier
-    Pallas path runs SPMD across the 8-device global mesh, snapshots carry
-    the true extent, and values match a single-process run."""
+    """Grid indivisible along both mesh axes under 2 coordinated
+    processes: the padded GSPMD path runs SPMD across the 8-device global
+    mesh, snapshots carry the true extent, and values match a
+    single-process run."""
     out = str(tmp_path / "mh")
-    extra = ["--nx=1000", "--ny=72", "--kernel=pallas_multistep"]
+    extra = ["--nx=1001", "--ny=73"]
     for attempt in range(2):
         procs, outs = _spawn_group(str(free_port()), out, nproc=2,
                                    extra_args=extra)
@@ -426,7 +420,7 @@ def test_two_process_carrier_path(tmp_path):
             break
     for i, (p, o) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"proc {i} failed:\n{o[-3000:]}"
-    assert "CARRIER path" in outs[0]
+    assert "padded GSPMD" in outs[0]
 
     from climate_sim_tpu.config import merged_config
     from climate_sim_tpu.io.netcdf import NetCDFFile
@@ -434,13 +428,13 @@ def test_two_process_carrier_path(tmp_path):
 
     ref_out = str(tmp_path / "single")
     cfg = merged_config(None, [
-        "--nx=1000", "--ny=72", "--steps=8", "--out_every=4",
-        "--kernel=pallas_multistep", f"--output.dir={ref_out}",
+        "--nx=1001", "--ny=73", "--steps=8", "--out_every=4",
+        f"--output.dir={ref_out}",
     ])
     run_simulation(cfg)
     with NetCDFFile(os.path.join(out, "snapshots.nc")) as a, \
             NetCDFFile(os.path.join(ref_out, "snapshots.nc")) as b:
-        assert a.dimensions == {"time": 2, "y": 72, "x": 1000}
+        assert a.dimensions == {"time": 2, "y": 73, "x": 1001}
         for t in range(2):
             np.testing.assert_allclose(
                 a.variables["u"][t, :, :], b.variables["u"][t, :, :], atol=5e-5
@@ -449,14 +443,13 @@ def test_two_process_carrier_path(tmp_path):
 
 @pytest.mark.slow
 def test_two_process_carrier_torus_staged_wrap(tmp_path):
-    """The STAGED torus carrier under true multi-controller execution:
-    both wrap-head/tail blocks staged with the r05 slope-2 scheme (the
-    x head ppermute rides round 1, the x-extended y head rides round 2,
-    local patches) across REAL cross-process collectives — the virtual
-    mesh cannot catch transport-level ordering mistakes here.  Values
-    must match a single-process run of the same config."""
+    """A torus on a grid indivisible along both mesh axes under true
+    multi-controller execution: the padded GSPMD path's wrap traffic
+    crosses REAL cross-process collectives — the virtual mesh cannot catch
+    transport-level ordering mistakes here.  Values must match a
+    single-process run of the same config."""
     out = str(tmp_path / "mh_ct")
-    extra = ["--nx=1000", "--ny=72", "--kernel=pallas_multistep",
+    extra = ["--nx=1001", "--ny=73",
              "--bc.left=periodic", "--bc.right=periodic",
              "--bc.bottom=periodic", "--bc.top=periodic"]
     for attempt in range(2):
@@ -466,7 +459,7 @@ def test_two_process_carrier_torus_staged_wrap(tmp_path):
             break
     for i, (p, o) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"proc {i} failed:\n{o[-3000:]}"
-    assert "CARRIER path" in outs[0]
+    assert "padded GSPMD" in outs[0]
 
     from climate_sim_tpu.config import merged_config
     from climate_sim_tpu.io.netcdf import NetCDFFile
@@ -474,8 +467,8 @@ def test_two_process_carrier_torus_staged_wrap(tmp_path):
 
     ref_out = str(tmp_path / "single_ct")
     cfg = merged_config(None, [
-        "--nx=1000", "--ny=72", "--steps=8", "--out_every=4",
-        "--kernel=pallas_multistep", f"--output.dir={ref_out}",
+        "--nx=1001", "--ny=73", "--steps=8", "--out_every=4",
+        f"--output.dir={ref_out}",
         "--bc.left=periodic", "--bc.right=periodic",
         "--bc.bottom=periodic", "--bc.top=periodic",
     ])
@@ -487,52 +480,3 @@ def test_two_process_carrier_torus_staged_wrap(tmp_path):
                 a.variables["u"][t, :, :], b.variables["u"][t, :, :],
                 atol=5e-5,
             )
-
-
-@pytest.mark.slow
-def test_two_process_overlap_one_sided_matches_oracle(tmp_path):
-    """The halo-overlap path (interior kernel concurrent with the face
-    exchanges + four edge-band kernels) under TRUE multi-controller
-    execution, with a BOTH-axes one-sided-periodic BC mix: the band
-    kernels consume process-spanning exchanged wrap blocks and apply the
-    composed wrap consumer patches.  Geometry check below pins that the
-    overlap build actually engages for these tiles (a declined build
-    would silently fall back to the slab path and test nothing new)."""
-    extra = (
-        "--nx=512", "--ny=128", "--steps=19", "--out_every=19",
-        "--kernel=pallas_multistep", "--write_final=true",
-        "--halo_overlap=true",
-        "--bc.left=periodic", "--bc.right=dirichlet",
-        "--bc.bottom=periodic", "--bc.top=neumann",
-    )
-    from climate_sim_tpu.config import merged_config
-    from climate_sim_tpu.parallel.halo import build_sharded_overlap_advance
-    from climate_sim_tpu.parallel.mesh import make_mesh
-
-    cfg = merged_config(None, list(extra))
-    mesh8 = make_mesh(4, 2)  # the worker's 8-device mesh resolves to 4x2
-    assert build_sharded_overlap_advance(
-        cfg, mesh8, cfg.dt, interpret=True
-    ) is not None, "overlap build must engage for 128x64 tiles"
-
-    out = str(tmp_path / "mh_ovl")
-    for attempt in range(2):  # retry once on a lost port race
-        procs, outs = _spawn_group(str(free_port()), out, extra_args=extra)
-        if all(p.returncode == 0 for p in procs) or attempt == 1:
-            break
-    for i, (p, o) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"proc {i} failed:\n{o[-3000:]}"
-        assert f"MH_OK {i} 2 8" in o
-
-    import jax.numpy as jnp
-
-    from climate_sim_tpu.io.netcdf import NetCDFFile
-    from climate_sim_tpu.ops import gaussian_hotspot
-    from climate_sim_tpu.ops.step import reference_step
-
-    u = gaussian_hotspot(cfg, jnp.float32)
-    for _ in range(19):
-        u = reference_step(u, cfg, cfg.dt)
-    with NetCDFFile(os.path.join(out, "snapshots.nc")) as ds:
-        got = ds.variables["u"][-1, :, :]
-    np.testing.assert_allclose(got, np.asarray(u), atol=5e-5)

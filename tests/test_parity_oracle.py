@@ -21,7 +21,6 @@ def make_cfg(nx, ny, D, vx, vy, dt, bcs, compat=False, dx=1.0, dy=1.0):
     cfg = SimConfig(nx=nx, ny=ny, dx=dx, dy=dy, D=D, vx=vx, vy=vy, dt=dt,
                     steps=1, out_every=1)
     cfg.precision = "f64"
-    cfg.kernel = "jnp"
     cfg.strict_reference_compat = compat
     cfg.bc = BCConfig(left=BC[bcs[0]], right=BC[bcs[1]],
                       bottom=BC[bcs[2]], top=BC[bcs[3]])

@@ -96,7 +96,7 @@ def test_generate_ic_matches_builtin_preset(tmp_path):
 
 def test_output_enable_false_writes_nothing(tmp_path):
     env = dict(os.environ)
-    env["CLIMATE_SIM_PLATFORM"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"
     out = subprocess.run(
         [sys.executable, "-m", "climate_sim_tpu", "--nx=32", "--ny=32",
          "--steps=4", "--output.enable=false",
@@ -165,38 +165,3 @@ def test_generate_ic_hdf5_format_restartable(tmp_path):
         fields.append(np.asarray(apply_initial_condition(cfg, jnp.float64)))
     np.testing.assert_array_equal(fields[0], fields[1])
     np.testing.assert_allclose(fields[0], U)
-
-
-def test_trace_rate_analyze_synthetic(tmp_path):
-    """scripts/trace_rate.py's analyzer computes ms/chunk, device rate and
-    gaps from a Perfetto trace layout (synthetic fixture)."""
-    import gzip
-    import json
-    import sys
-
-    sys.path.insert(0, os.path.join(REPO, "scripts"))
-    try:
-        from trace_rate import analyze
-    finally:
-        sys.path.pop(0)
-
-    d = tmp_path / "plugins" / "profile" / "2026_01_01_00_00_00"
-    d.mkdir(parents=True)
-    events = [
-        {"ph": "X", "pid": 3, "tid": 3, "name": "jit_body(1)",
-         "ts": 1000.0 + i * 1100.0, "dur": 1000.0}
-        for i in range(3)
-    ] + [  # a shorter competing program that must NOT be picked
-        {"ph": "X", "pid": 3, "tid": 3, "name": "jit_tiny(2)",
-         "ts": 50.0, "dur": 200.0},
-    ]
-    with gzip.open(d / "vm.trace.json.gz", "wt") as f:
-        json.dump({"traceEvents": events}, f)
-
-    r = analyze(str(tmp_path), nx=1000, ny=1000, chunk=10)
-    assert r["program"] == "jit_body(1)"
-    assert r["n_chunks"] == 3
-    assert abs(r["ms_per_chunk"] - 1.0) < 1e-9
-    # 1e6 points * 10 steps / 1e-3 s = 1e10 pt/s = 10 Gpt/s
-    assert abs(r["device_gpts"] - 10.0) < 1e-6
-    assert abs(r["max_gap_ms"] - 0.1) < 1e-9
